@@ -57,29 +57,31 @@ def _worker() -> int:
     jax.config.update("jax_num_cpu_devices", 2)
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
-    from rust_msbwt_tpu.parallel.multihost import (
+    from msbwt_jax.parallel.multihost import (
         init_distributed,
         process_read_slice,
     )
 
     assert init_distributed(), "distributed init failed"
     assert jax.process_count() == nproc
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_comp_cache_cpu")
+    from msbwt_jax.utils.jaxcache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     import jax.numpy as jnp
     import numpy as np
     from jax.experimental import multihost_utils
 
-    from rust_msbwt_tpu.ops.alphabet import convert_itos, convert_stoi
-    from rust_msbwt_tpu.ops.bcr import build_msbwt, encode_reads
-    from rust_msbwt_tpu.parallel.doubling_merge import sharded_doubling_merge
-    from rust_msbwt_tpu.parallel.mesh import default_mesh
-    from rust_msbwt_tpu.parallel.sharded_index import (
+    from msbwt_jax.ops.alphabet import convert_itos, convert_stoi
+    from msbwt_jax.ops.bcr import build_msbwt, encode_reads
+    from msbwt_jax.parallel.doubling_merge import sharded_doubling_merge
+    from msbwt_jax.parallel.mesh import default_mesh
+    from msbwt_jax.parallel.sharded_index import (
         build_sharded_index,
         count_kmers_sharded,
     )
-    from rust_msbwt_tpu.utils.checkpoint import load_sharded, save_sharded
-    from rust_msbwt_tpu.utils.oracle import naive_bwt
+    from msbwt_jax.utils.checkpoint import load_sharded, save_sharded
+    from msbwt_jax.utils.oracle import naive_bwt
 
     phases: dict[str, float] = {}
     mesh = default_mesh()  # global: nproc x 2 devices

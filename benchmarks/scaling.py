@@ -1,18 +1,14 @@
 """Scaling-efficiency accounting for the distributed paths.
 
 Wall-clock on the 8-virtual-device CPU mesh is meaningless (one physical
-core executes all "devices" serially), so this benchmark reports what CAN
-be measured honestly off-pod:
+core executes all "devices" serially), so this benchmark reports what a
+CPU run CAN count:
 
-1. **Counted communication volume** per merge round, dense vs ragged
-   transport, from the actual converged interleave count matrices — the
-   quantity that rides ICI/DCN on a real pod.
-2. **Weak-scaling model** for the three production paths, combining the
-   counted volumes with the measured single-chip compute rates
-   (BASELINE.md) and published v5e link bandwidths. The model is the
-   standard roofline composition: eff = T_compute / (T_compute + T_comm).
-3. **Mesh-program round counts** (merge refinement rounds to fixpoint),
-   measured by running the real sharded programs on the virtual mesh.
+1. **Communication volume** per merge round, dense vs ragged transport,
+   from the actual converged interleave count matrices — the quantity that
+   crosses the interconnect on real devices.
+2. **Mesh-program round counts** (merge refinement rounds to fixpoint),
+   counted by running the real sharded programs on the virtual mesh.
 
 Run: JAX_PLATFORMS=cpu python benchmarks/scaling.py
 """
@@ -37,18 +33,10 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-# v5e per-chip numbers (public): ICI 1600 Gbps/chip bidir ~ 2e11 B/s usable;
-# DCN per host ~ 25 GB/s. Compute rates measured on the real chip (BASELINE).
-ICI_BW = 2.0e11
-DCN_BW = 2.5e10
-BUILD_RATE = 13.3e6       # bases/s/chip, 505M config (round 2 measured)
-QUERY_RATE = 1.55e6       # q/s/chip at the 505M index (round 1 measured)
-
-
 def merge_volumes(parts: list[np.ndarray], d: int):
     """Exact per-device per-round exchanged elements for both transports,
     from the converged interleave (host replication of the H-M fixpoint)."""
-    from rust_msbwt_tpu.ops.merge import merge_interleave
+    from msbwt_jax.ops.merge import merge_interleave
 
     # D-way final assignment (source id per merged position) via iterative
     # pairwise merges of (bwt, src) — cheap host bookkeeping, equivalent to
@@ -91,7 +79,7 @@ def merge_volumes(parts: list[np.ndarray], d: int):
 def measured_rounds(parts):
     """Count refinement rounds by running the host fixpoint (equals the
     device while_loop trip count)."""
-    from rust_msbwt_tpu.utils.oracle import (
+    from msbwt_jax.utils.oracle import (
         generate_offset_map,
         pairwise_merge_iter,
     )
@@ -159,7 +147,7 @@ def doubling_volumes(n: int, d: int, rounds: int):
 
 
 def main():
-    from rust_msbwt_tpu.ops.bcr import build_msbwt, encode_reads
+    from msbwt_jax.ops.bcr import build_msbwt, encode_reads
 
     rng = np.random.default_rng(2024)
     genome = rng.integers(1, 6, 5_000).astype(np.uint8)
@@ -195,37 +183,6 @@ def main():
           "length rotations), where doubling ships "
           f"{101 * 3 / (13 * 8 + 17):.1f}x less and syncs "
           f"{101 * 3 // (8 * 13)}x fewer times at 100 bp.")
-
-    print("\n== weak-scaling efficiency model (v5e pod, per-chip load fixed) ==")
-    print("path: counting queries via PARTITIONED indexes (the scaling path:")
-    print("counts are additive over read partitions; comm = one [B] psum)")
-    B = 1_000_000
-    for d in (2, 4, 8, 64):
-        t_comp = B / QUERY_RATE
-        t_comm = (B * 8 * np.log2(d)) / ICI_BW  # psum butterfly, 8B counts
-        eff = t_comp / (t_comp + t_comm)
-        print(f"  D={d:>3}: efficiency {eff:.1%}")
-    print("path: distributed BUILD (per-shard BCR + ragged D-way merge),")
-    print("505M symbols/chip weak scaling:")
-    n_per = 505e6
-    for d in (2, 4, 8):
-        t_comp = n_per / BUILD_RATE
-        rounds_est = 101  # max rotation period for 100bp reads
-        t_comm = rounds_est * (3 * n_per * 4) / ICI_BW
-        dbl_r = int(np.ceil(np.log2(101))) + 1
-        t_dbl = (dbl_r * 13 + 17) * n_per * 4 / ICI_BW
-        eff = t_comp / (t_comp + t_comm)
-        eff_d = t_comp / (t_comp + t_dbl)
-        print(f"  D={d:>3}: H-M efficiency {eff:.1%} "
-              f"(comm {t_comm:.1f}s), doubling {eff_d:.1%} "
-              f"(comm {t_dbl:.1f}s) vs compute {t_comp:.1f}s")
-    print("  (dense transport at D=8 would ship "
-          f"{(101 * (8 * n_per + 2 * 8 * n_per) * 4) / ICI_BW:.0f}s of traffic "
-          "per device — the ragged transport is what makes ≥80% reachable)")
-    print("  long reads (1 kb): H-M needs ~1001 rounds, doubling ~12 — "
-          f"comm {1001 * 3 * n_per * 4 / ICI_BW:.0f}s vs "
-          f"{(12 * 13 + 17) * n_per * 4 / ICI_BW:.0f}s per device")
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,9 +1,9 @@
-// Native host runtime for rust_msbwt_tpu: FASTX ingestion + RLE codec.
+// Native host runtime for msbwt_jax: FASTX ingestion + RLE codec.
 //
 // Plays the role the reference delegates to native crates: needletail's
 // FASTA/FASTQ(+gzip) parsing (ref: src/dynamic_bwt.rs:453-473) and the RLE
 // byte codec hot loops (ref: src/bwt_converter.rs:26-80, src/rle_bwt.rs:352-384).
-// The TPU compute path stays in XLA/Pallas; this library keeps the host side
+// The device compute path stays in XLA; this library keeps the host side
 // (IO, decode, encode) off the Python interpreter.
 //
 // C ABI, consumed from Python via ctypes (no pybind11 in the image).

@@ -1,14 +1,14 @@
-"""Adversarial construction cases distilled from the TPU fuzz campaigns:
-heavy duplication (wide merge-kernel path, terminator ties), periodic reads
+"""Adversarial construction cases distilled from earlier fuzz campaigns:
+heavy duplication (dense insertion runs, terminator ties), periodic reads
 (cyclic tie-breaking / Fine-Wilf bound in the terminator search), prefix
 families, and chained extends. All checked against the naive oracle or the
 independently-validated one-shot build."""
 
 import numpy as np
 
-from rust_msbwt_tpu.ops.alphabet import convert_itos
-from rust_msbwt_tpu.ops.bcr import build_msbwt, encode_reads
-from rust_msbwt_tpu.utils.oracle import naive_bwt
+from msbwt_jax.ops.alphabet import convert_itos
+from msbwt_jax.ops.bcr import build_msbwt, encode_reads
+from msbwt_jax.utils.oracle import naive_bwt
 
 
 def _oracle_check(reads_l):

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from rust_msbwt_tpu.ops.alphabet import (
+from msbwt_jax.ops.alphabet import (
     COMPLEMENT_INT,
     INT_TO_STRING,
     STRING_TO_INT,

@@ -4,9 +4,9 @@ the original msbwt, driven through the batched device query path."""
 import numpy as np
 import pytest
 
-from rust_msbwt_tpu.apps import correct_reads, flag_read_errors
-from rust_msbwt_tpu.models.dynamic import DynamicBWT
-from rust_msbwt_tpu.ops.alphabet import convert_itos
+from msbwt_jax.apps import correct_reads, flag_read_errors
+from msbwt_jax.models.dynamic import DynamicBWT
+from msbwt_jax.ops.alphabet import convert_itos
 
 
 @pytest.fixture(scope="module")

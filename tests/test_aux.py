@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from rust_msbwt_tpu.ops.alphabet import convert_stoi
-from rust_msbwt_tpu.ops.bcr import build_msbwt, encode_reads
-from rust_msbwt_tpu.ops.rank import build_occ_index, count_kmers
-from rust_msbwt_tpu.utils import checkpoint, checks
-from rust_msbwt_tpu.utils.oracle import naive_bwt
-from rust_msbwt_tpu.utils.profiling import build_roofline, query_roofline, timeit
+from msbwt_jax.ops.alphabet import convert_stoi
+from msbwt_jax.ops.bcr import build_msbwt, encode_reads
+from msbwt_jax.ops.rank import build_occ_index, count_kmers
+from msbwt_jax.utils import checkpoint, checks
+from msbwt_jax.utils.oracle import naive_bwt
+from msbwt_jax.utils.profiling import build_roofline, query_roofline, timeit
 
 
 @pytest.fixture(scope="module")
@@ -35,9 +35,9 @@ def test_query_pack_roundtrip(tmp_path, decoded):
     """Full query pack (packed + pair + cache) restores every batched path."""
     import jax.numpy as jnp
 
-    from rust_msbwt_tpu.ops.packed_rank import count_kmers_packed, pack_index
-    from rust_msbwt_tpu.ops.pair_rank import build_pair_index, count_kmers_pair
-    from rust_msbwt_tpu.ops.rank import build_kmer_cache
+    from msbwt_jax.ops.packed_rank import count_kmers_packed, pack_index
+    from msbwt_jax.ops.pair_rank import build_pair_index, count_kmers_pair
+    from msbwt_jax.ops.rank import build_kmer_cache
 
     index = build_occ_index(jnp.asarray(decoded))
     packed = pack_index(index)
@@ -59,8 +59,8 @@ def test_query_pack_roundtrip(tmp_path, decoded):
 def test_query_pack_on_rle_bwt(tmp_path, decoded):
     """RleBWT.save_query_indexes / load_query_indexes round-trip, plus the
     mismatched-BWT guard."""
-    from rust_msbwt_tpu.models.rle_bwt import RleBWT
-    from rust_msbwt_tpu.ops.rle import bytes_from_runs, runs_from_symbols
+    from msbwt_jax.models.rle_bwt import RleBWT
+    from msbwt_jax.ops.rle import bytes_from_runs, runs_from_symbols
 
     rle = bytes_from_runs(*runs_from_symbols(decoded))
     a = RleBWT()
@@ -90,7 +90,7 @@ def test_query_pack_extensionless_path(tmp_path, decoded):
     honor the exact filename or save->isfile->load never round-trips."""
     import jax.numpy as jnp
 
-    from rust_msbwt_tpu.ops.packed_rank import pack_index
+    from msbwt_jax.ops.packed_rank import pack_index
 
     index = build_occ_index(jnp.asarray(decoded))
     p = str(tmp_path / "indexes.pack")  # no .npz extension
@@ -103,8 +103,8 @@ def test_query_pack_extensionless_path(tmp_path, decoded):
 def test_save_query_indexes_skips_underived_packed(tmp_path, decoded):
     """A pair-only engine must not derive (and host-copy) the packed table
     just to persist its indexes — save what was built."""
-    from rust_msbwt_tpu.models.rle_bwt import RleBWT
-    from rust_msbwt_tpu.ops.rle import bytes_from_runs, runs_from_symbols
+    from msbwt_jax.models.rle_bwt import RleBWT
+    from msbwt_jax.ops.rle import bytes_from_runs, runs_from_symbols
 
     rle = bytes_from_runs(*runs_from_symbols(decoded))
     a = RleBWT()
@@ -149,7 +149,7 @@ def test_resume_and_extend_from_checkpoint(tmp_path):
     resumed = checkpoint.load_sharded(d)
     reads2, lengths2 = encode_reads([convert_stoi("GATTACA")])
     out = build_msbwt(reads2, lengths2, base=resumed, base_string_count=2)
-    from rust_msbwt_tpu.ops.alphabet import convert_itos
+    from msbwt_jax.ops.alphabet import convert_itos
 
     assert convert_itos(out) == naive_bwt(first + ["GATTACA"])
 
@@ -184,30 +184,76 @@ def test_determinism_harness(decoded):
 
 
 def test_rooflines_and_timeit():
-    r = query_roofline(1_000_000, 21, measured_seconds=0.25)
+    r = query_roofline(1_000_000, 21, measured_seconds=0.25, hbm_bw=3.35e12)
     assert 0 < r.fraction_of_light < 1
-    b = build_roofline(1_000_000, 100, measured_seconds=1.0)
-    assert b.bytes_touched == 101 * 1_000_000 * 33
+    b = build_roofline(1_000_000, 100, measured_seconds=1.0, hbm_bw=3.35e12)
+    assert b.bytes_touched == 101 * 1_000_000 * 12
     dt = timeit(lambda: np.arange(10), reps=2, warmup=1)
     assert dt >= 0
 
 
 def test_session_health_smoke():
-    """The A/B runbook's health gate (benchmarks/probes/run_all.sh aborts
-    a hardware session if this crashes) — smoke it at tiny probe sizes."""
-    from rust_msbwt_tpu.utils.profiling import session_health
+    """The device-ceiling probe (bf16 matmul + copy) — smoke it at tiny
+    sizes on the CPU."""
+    from msbwt_jax.utils.profiling import session_health
 
-    h = session_health(mxu_n=256, hbm_mwords=1)
-    assert set(h) == {"dispatch_roundtrip_ms", "mxu_tflops_bf16", "hbm_gbps"}
-    # tiny CPU probes can round to 0.0 Tflop/s — only require sane values
-    assert all(v >= 0 for v in h.values())
-    assert h["dispatch_roundtrip_ms"] > 0
+    h = session_health(mm_n=256, copy_mwords=1)
+    assert set(h) == {"matmul_tflops_bf16", "copy_gbps"}
+    assert all(v > 0 for v in h.values())
 
 
 def test_enable_persistent_cache_idempotent(tmp_path, monkeypatch):
-    from rust_msbwt_tpu.utils.jaxcache import enable_persistent_cache
+    import jax
 
-    monkeypatch.setenv("MSBWT_TPU_CACHE", str(tmp_path / "jc"))
-    enable_persistent_cache()
-    enable_persistent_cache()  # second call must be harmless
+    from msbwt_jax.utils.jaxcache import enable_persistent_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "jc"))
+    try:
+        assert enable_persistent_cache() == str(tmp_path / "jc")
+        enable_persistent_cache()  # second call must be harmless
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path / "jc")
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
     assert (tmp_path / "jc").is_dir()
+
+
+@pytest.mark.parametrize("env", ["", "set"])
+def test_cache_dir_rule(tmp_path, monkeypatch, env):
+    """$JAX_COMPILATION_CACHE_DIR wins when set; otherwise one fixed
+    directory inside the checkout (listed in .gitignore)."""
+    import os
+
+    from msbwt_jax.utils import jaxcache
+
+    if env:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert jaxcache.cache_dir() == str(tmp_path)
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert jaxcache.cache_dir() == os.path.join(repo, ".jax_cache")
+        with open(os.path.join(repo, ".gitignore")) as f:
+            assert ".jax_cache/" in f.read().split()
+
+
+@pytest.mark.parametrize("kind,ok", [("NVIDIA H100 80GB HBM3", True),
+                                     ("cpu", False), ("Tesla V100-SXM2-16GB", False)])
+def test_device_peaks_table(kind, ok):
+    """The H100 resolves to its data-sheet peaks; any other kind raises."""
+    from msbwt_jax.utils.profiling import device_peaks
+
+    if ok:
+        p = device_peaks(kind)
+        assert p["hbm_bytes_per_s"] == 3.35e12
+        assert p["bf16_flops_per_s"] == 989e12
+    else:
+        with pytest.raises(ValueError, match="no published peaks"):
+            device_peaks(kind)
+
+
+def test_rooflines_need_a_known_device():
+    """Without an explicit bandwidth the roofline reads the current
+    device's peak — the CPU has none, so it raises instead of guessing."""
+    with pytest.raises(ValueError):
+        query_roofline(1_000, 21, measured_seconds=1.0)

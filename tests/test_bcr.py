@@ -6,9 +6,9 @@ Mirrors the reference's oracle-based construction tests
 
 import numpy as np
 
-from rust_msbwt_tpu.ops.alphabet import convert_itos, convert_stoi
-from rust_msbwt_tpu.ops.bcr import build_msbwt, encode_reads
-from rust_msbwt_tpu.utils.oracle import naive_bwt
+from msbwt_jax.ops.alphabet import convert_itos, convert_stoi
+from msbwt_jax.ops.bcr import build_msbwt, encode_reads
+from msbwt_jax.utils.oracle import naive_bwt
 
 
 def _build(strings, sorted_insert=True, base=None, base_string_count=0):
@@ -117,21 +117,20 @@ def test_random_incremental(rng):
 
 def test_build_with_index_matches_separate_derivation(rng):
     """Fused index derivation (straight off the build's device state) must
-    equal build -> build_occ_index -> pack_index from decoded symbols.
-    Runs the Pallas engine in interpret mode on CPU."""
+    equal build -> build_occ_index -> pack_index from decoded symbols."""
     import jax.numpy as jnp
 
-    from rust_msbwt_tpu.ops.bcr import build_msbwt, build_msbwt_with_index
-    from rust_msbwt_tpu.ops.packed_rank import count_kmers_packed, pack_index
-    from rust_msbwt_tpu.ops.rank import build_occ_index
+    from msbwt_jax.ops.bcr import build_msbwt, build_msbwt_with_index
+    from msbwt_jax.ops.packed_rank import count_kmers_packed, pack_index
+    from msbwt_jax.ops.rank import build_occ_index
 
     reads = rng.integers(1, 6, size=(40, 12)).astype(np.uint8)
     lengths = np.full(40, 12, np.int32)
-    decoded = build_msbwt(reads, lengths, engine="pallas")
+    decoded = build_msbwt(reads, lengths, engine="fused")
     want_idx = build_occ_index(jnp.asarray(decoded))
     want_packed = pack_index(want_idx)
 
-    idx, packed = build_msbwt_with_index(reads, lengths, engine="pallas")
+    idx, packed = build_msbwt_with_index(reads, lengths, engine="fused")
     assert idx.n == want_idx.n
     assert np.array_equal(np.asarray(idx.bwt), np.asarray(want_idx.bwt))
     assert np.array_equal(np.asarray(idx.occ), np.asarray(want_idx.occ))
@@ -148,9 +147,9 @@ def test_build_with_index_matches_separate_derivation(rng):
 
 
 def test_build_with_index_xla_fallback(rng):
-    """The XLA engine path of build_msbwt_with_index (CPU meshes) matches."""
-    from rust_msbwt_tpu.ops.bcr import build_msbwt, build_msbwt_with_index
-    from rust_msbwt_tpu.ops.rank import count_kmers
+    """The XLA engine path of build_msbwt_with_index matches."""
+    from msbwt_jax.ops.bcr import build_msbwt, build_msbwt_with_index
+    from msbwt_jax.ops.rank import count_kmers
 
     reads = rng.integers(1, 6, size=(25, 9)).astype(np.uint8)
     lengths = np.full(25, 9, np.int32)
@@ -164,8 +163,8 @@ def test_build_with_index_xla_fallback(rng):
 def test_radix2_matches_oracle(monkeypatch, rng):
     """Radix-2 stages (two columns per merge pass) must equal the oracle on
     sorted, chronological, variable-length, duplicate and extend cases.
-    Forced via MSBWT_TPU_RADIX=2 (auto mode picks radix 1 for short reads)."""
-    monkeypatch.setenv("MSBWT_TPU_RADIX", "2")
+    Forced via MSBWT_RADIX=2 (auto mode picks radix 1 for short reads)."""
+    monkeypatch.setenv("MSBWT_RADIX", "2")
     for trial in range(3):
         n = int(rng.integers(5, 40))
         reads_l = [rng.integers(1, 6, int(rng.integers(1, 25))).astype(np.uint8)
@@ -174,18 +173,18 @@ def test_radix2_matches_oracle(monkeypatch, rng):
             reads_l[1] = reads_l[0].copy()  # duplicates
         reads, lens = encode_reads(reads_l)
         want = naive_bwt([convert_itos(r) for r in reads_l])
-        got = build_msbwt(reads, lens, engine="pallas")
+        got = build_msbwt(reads, lens, engine="fused")
         assert convert_itos(got) == want, f"sorted trial {trial}"
-        got2 = build_msbwt(reads, lens, sorted_insert=False, engine="pallas")
+        got2 = build_msbwt(reads, lens, sorted_insert=False, engine="fused")
         want2 = build_msbwt(reads, lens, sorted_insert=False, engine="xla")
         assert np.array_equal(got2, want2), f"chrono trial {trial}"
     # extend after a radix-2 build
     base_l = [rng.integers(1, 6, 12).astype(np.uint8) for _ in range(8)]
     br, bl = encode_reads(base_l)
-    base = build_msbwt(br, bl, engine="pallas")
+    base = build_msbwt(br, bl, engine="fused")
     new_l = [rng.integers(1, 6, 9).astype(np.uint8) for _ in range(5)]
     nr, nl = encode_reads(new_l)
-    got = build_msbwt(nr, nl, base=base, base_string_count=8, engine="pallas")
+    got = build_msbwt(nr, nl, base=base, base_string_count=8, engine="fused")
     want = naive_bwt([convert_itos(r) for r in base_l + new_l])
     assert convert_itos(got) == want
 
@@ -194,16 +193,16 @@ def test_radix2_with_index(monkeypatch, rng):
     """Fused index derivation must be exact off radix-2 carries too."""
     import jax.numpy as jnp
 
-    from rust_msbwt_tpu.ops.bcr import build_msbwt_with_index
-    from rust_msbwt_tpu.ops.packed_rank import pack_index
-    from rust_msbwt_tpu.ops.rank import build_occ_index
+    from msbwt_jax.ops.bcr import build_msbwt_with_index
+    from msbwt_jax.ops.packed_rank import pack_index
+    from msbwt_jax.ops.rank import build_occ_index
 
-    monkeypatch.setenv("MSBWT_TPU_RADIX", "2")
+    monkeypatch.setenv("MSBWT_RADIX", "2")
     reads = rng.integers(1, 6, size=(30, 11)).astype(np.uint8)
     lengths = np.full(30, 11, np.int32)
-    decoded = build_msbwt(reads, lengths, engine="pallas")
+    decoded = build_msbwt(reads, lengths, engine="fused")
     want = pack_index(build_occ_index(jnp.asarray(decoded)))
-    idx, packed = build_msbwt_with_index(reads, lengths, engine="pallas")
+    idx, packed = build_msbwt_with_index(reads, lengths, engine="fused")
     assert np.array_equal(np.asarray(packed.table), np.asarray(want.table))
 
 
@@ -211,7 +210,7 @@ def test_wire_packed_upload_byte_identical(rng):
     """The nibble-packed host->device upload path (split-half layout) must
     be invisible: builds with the threshold forced to 0 equal the plain
     uploads, for odd and even view sizes and the extend flow."""
-    from rust_msbwt_tpu.ops import bcr
+    from msbwt_jax.ops import bcr
 
     reads = [
         "".join(rng.choice(list("ACGT"), size=int(k)))
@@ -244,8 +243,8 @@ def test_wire_packed_upload_byte_identical(rng):
 def test_bucket_schedule_growth_factors():
     """The schedule must cover stages [2, L+2) contiguously with chunk-
     aligned, size-sufficient, non-decreasing capacities for any growth
-    factor (env MSBWT_TPU_BUCKET_GROWTH)."""
-    from rust_msbwt_tpu.ops.bcr import bucket_schedule
+    factor (env MSBWT_BUCKET_GROWTH)."""
+    from msbwt_jax.ops.bcr import bucket_schedule
 
     for growth in (1.05, 1.2, 1.3, 1.5, 2.0, 3.0, 4.0):
         for (n0, N, L, chunk) in [(0, 10, 20, 16), (37, 7, 100, 64),
@@ -266,55 +265,52 @@ def test_bucket_schedule_growth_factors():
 def test_bucketed_build_small_growth_matches_oracle(monkeypatch, rng):
     """A bucketed build with a small growth factor (many buckets) must stay
     oracle-exact — forced at tiny scale by patching the size gate."""
-    from rust_msbwt_tpu.ops import bcr
+    from msbwt_jax.ops import bcr
 
     monkeypatch.setattr(bcr, "_BUCKET_MIN_SYMBOLS", 1)
-    monkeypatch.setenv("MSBWT_TPU_BUCKET_GROWTH", "1.2")
+    monkeypatch.setenv("MSBWT_BUCKET_GROWTH", "1.2")
     reads_l = [rng.integers(1, 6, int(rng.integers(3, 14))).astype(np.uint8)
                for _ in range(25)]
     reads, lens = encode_reads(reads_l)
-    got = build_msbwt(reads, lens, engine="pallas")
+    got = build_msbwt(reads, lens, engine="fused")
     assert convert_itos(got) == naive_bwt([convert_itos(r) for r in reads_l])
 
 
 def test_bucketed_radix2_small_growth(monkeypatch, rng):
     """Radix-2 stage pairing must respect bucket boundaries for any growth
     factor (buckets shrink to even stage counts, never extend)."""
-    from rust_msbwt_tpu.ops import bcr
+    from msbwt_jax.ops import bcr
 
     monkeypatch.setattr(bcr, "_BUCKET_MIN_SYMBOLS", 1)
-    monkeypatch.setenv("MSBWT_TPU_BUCKET_GROWTH", "1.2")
-    monkeypatch.setenv("MSBWT_TPU_RADIX", "2")
+    monkeypatch.setenv("MSBWT_BUCKET_GROWTH", "1.2")
+    monkeypatch.setenv("MSBWT_RADIX", "2")
     reads_l = [rng.integers(1, 6, int(rng.integers(4, 16))).astype(np.uint8)
                for _ in range(20)]
     reads, lens = encode_reads(reads_l)
-    got = build_msbwt(reads, lens, engine="pallas")
+    got = build_msbwt(reads, lens, engine="fused")
     assert convert_itos(got) == naive_bwt([convert_itos(r) for r in reads_l])
 
 
 def test_all_optin_levers_composed(monkeypatch, rng):
     """Every opt-in perf lever enabled at once (pair-fast stream, 60-lane
-    pair rows, 64-lane fused table, small bucket growth,
-    CS-independent bucket math) must stay oracle-exact through the fused
-    build -> indexes -> pair -> queries flow."""
+    pair rows, small bucket growth) must stay oracle-exact through the
+    fused build -> indexes -> pair -> queries flow."""
     import jax.numpy as jnp
 
-    from rust_msbwt_tpu.ops import bcr
-    from rust_msbwt_tpu.ops.bcr import build_msbwt_with_index
-    from rust_msbwt_tpu.ops.pair_rank import build_pair_index, count_kmers_pair
-    from rust_msbwt_tpu.ops.rank import build_occ_index, count_kmers
+    from msbwt_jax.ops import bcr
+    from msbwt_jax.ops.bcr import build_msbwt_with_index
+    from msbwt_jax.ops.pair_rank import build_pair_index, count_kmers_pair
+    from msbwt_jax.ops.rank import build_occ_index, count_kmers
 
     monkeypatch.setattr(bcr, "_BUCKET_MIN_SYMBOLS", 1)
-    monkeypatch.setenv("MSBWT_TPU_BUCKET_GROWTH", "1.2")
-    monkeypatch.setenv("MSBWT_TPU_PAIR_FAST", "1")
-    monkeypatch.setenv("MSBWT_TPU_PAIR_ROW60", "1")
-    # TABLE64 / MERGE_CS / DMA_DEPTH are read at import; covered by the
-    # env-matrix CI lanes — here exercise the dynamically-read knobs
+    monkeypatch.setenv("MSBWT_BUCKET_GROWTH", "1.2")
+    monkeypatch.setenv("MSBWT_PAIR_FAST", "1")
+    monkeypatch.setenv("MSBWT_PAIR_ROW60", "1")
     reads_l = [rng.integers(1, 6, int(rng.integers(3, 18))).astype(np.uint8)
                for _ in range(30)]
     reads, lens = encode_reads(reads_l)
     want = naive_bwt([convert_itos(r) for r in reads_l])
-    idx, packed = build_msbwt_with_index(reads, lens, engine="pallas")
+    idx, packed = build_msbwt_with_index(reads, lens, engine="fused")
     got = np.asarray(idx.bwt[: idx.n])
     assert convert_itos(got) == want
     pidx = build_pair_index(idx)

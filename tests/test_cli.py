@@ -6,9 +6,9 @@ import sys
 
 import pytest
 
-from rust_msbwt_tpu.cli.build import main as build_main
-from rust_msbwt_tpu.cli.convert import main as convert_main
-from rust_msbwt_tpu.utils.npy import load_bwt_bytes
+from msbwt_jax.cli.build import main as build_main
+from msbwt_jax.cli.convert import main as convert_main
+from msbwt_jax.utils.npy import load_bwt_bytes
 
 from tests._data import GOLDEN_FA, GOLDEN_NPY  # noqa: E402
 
@@ -59,7 +59,7 @@ def test_convert_invalid_input(tmp_path):
 def test_convert_stdin(tmp_path):
     out = tmp_path / "conv.npy"
     proc = subprocess.run(
-        [sys.executable, "-m", "rust_msbwt_tpu.cli.convert", str(out)],
+        [sys.executable, "-m", "msbwt_jax.cli.convert", str(out)],
         input=b"ACGNT$", capture_output=True, cwd="/root/repo",
     )
     assert proc.returncode == 0, proc.stderr.decode()
@@ -77,7 +77,7 @@ def test_build_cli_streaming_batches(tmp_path):
 
 
 def test_query_cli(tmp_path, capsys):
-    from rust_msbwt_tpu.cli.query import main as query_main
+    from msbwt_jax.cli.query import main as query_main
 
     out = tmp_path / "q.npy"
     assert build_main(["-o", str(out), GOLDEN_FA]) == 0
@@ -89,7 +89,7 @@ def test_query_cli(tmp_path, capsys):
 def test_query_cli_locate(tmp_path, capsys):
     """--locate prints one (kmer, read_id, offset) line per occurrence;
     two_string.fa sorted = [ACGT, TGCA], so 'GC' hits only read 1 @1."""
-    from rust_msbwt_tpu.cli.query import main as query_main
+    from msbwt_jax.cli.query import main as query_main
 
     out = tmp_path / "q.npy"
     assert build_main(["-o", str(out), GOLDEN_FA]) == 0
@@ -103,7 +103,7 @@ def test_query_cli_max_mismatch(tmp_path, capsys):
     """--max-mismatch 1 counts single-substitution variants too: on
     two_string.fa (ACGT, TGCA), 'AGGT' has 0 exact hits but is 1 sub away
     from ACGT."""
-    from rust_msbwt_tpu.cli.query import main as query_main
+    from msbwt_jax.cli.query import main as query_main
 
     out = tmp_path / "q.npy"
     assert build_main(["-o", str(out), GOLDEN_FA]) == 0
@@ -112,7 +112,7 @@ def test_query_cli_max_mismatch(tmp_path, capsys):
 
 
 def test_query_cli_from_file(tmp_path, capsys):
-    from rust_msbwt_tpu.cli.query import main as query_main
+    from msbwt_jax.cli.query import main as query_main
 
     out = tmp_path / "q.npy"
     assert build_main(["-o", str(out), GOLDEN_FA]) == 0
@@ -126,7 +126,7 @@ def test_query_cli_from_file(tmp_path, capsys):
 def test_query_cli_index_pack(tmp_path, capsys):
     """--index-pack saves derived indexes on the first run and loads them
     (skipping derivation) on the second; results identical."""
-    from rust_msbwt_tpu.cli.query import main as query_main
+    from msbwt_jax.cli.query import main as query_main
 
     out = tmp_path / "q.npy"
     assert build_main(["-o", str(out), GOLDEN_FA]) == 0
@@ -149,7 +149,7 @@ def test_query_cli_index_pack_extensionless(tmp_path, capsys):
     trap), and a malformed pack exits IOERR instead of crashing."""
     import numpy as np
 
-    from rust_msbwt_tpu.cli.query import main as query_main
+    from msbwt_jax.cli.query import main as query_main
 
     out = tmp_path / "q.npy"
     assert build_main(["-o", str(out), GOLDEN_FA]) == 0
@@ -172,8 +172,8 @@ def test_query_cli_index_pack_extensionless(tmp_path, capsys):
 def test_query_cli_pack_gains_cache(tmp_path, capsys):
     """--cache-k on top of an already-loaded pack persists the new cache
     into the pack instead of rebuilding it every run."""
-    from rust_msbwt_tpu.cli.query import main as query_main
-    from rust_msbwt_tpu.utils.checkpoint import load_query_pack
+    from msbwt_jax.cli.query import main as query_main
+    from msbwt_jax.utils.checkpoint import load_query_pack
 
     out = tmp_path / "q.npy"
     assert build_main(["-o", str(out), GOLDEN_FA]) == 0
@@ -189,7 +189,7 @@ def test_query_cli_pack_gains_cache(tmp_path, capsys):
 
 
 def test_query_cli_missing_bwt():
-    from rust_msbwt_tpu.cli.query import main as query_main
+    from msbwt_jax.cli.query import main as query_main
 
     assert query_main(["/nonexistent.npy", "ACGT"]) == 66
 
@@ -199,8 +199,8 @@ def test_correct_cli(tmp_path, capsys):
     ragged reads through untouched."""
     import numpy as np
 
-    from rust_msbwt_tpu.cli.correct import main as correct_main
-    from rust_msbwt_tpu.ops.alphabet import convert_itos
+    from msbwt_jax.cli.correct import main as correct_main
+    from msbwt_jax.ops.alphabet import convert_itos
 
     rng = np.random.default_rng(7)
     genome = rng.integers(1, 6, 300).astype(np.uint8)
@@ -232,7 +232,7 @@ def test_correct_cli(tmp_path, capsys):
 
 
 def test_extract_cli(tmp_path, capsys):
-    from rust_msbwt_tpu.cli.extract import main as extract_main
+    from msbwt_jax.cli.extract import main as extract_main
 
     out = tmp_path / "e.npy"
     assert build_main(["-o", str(out), GOLDEN_FA]) == 0

@@ -6,29 +6,29 @@ import doctest
 
 import pytest
 
-import rust_msbwt_tpu.apps.correct as app_correct
-import rust_msbwt_tpu.models.core as core
-import rust_msbwt_tpu.models.dynamic as dynamic
-import rust_msbwt_tpu.models.rle_bwt as rle_bwt
-import rust_msbwt_tpu.ops.alphabet as alphabet
-import rust_msbwt_tpu.ops.bcr as bcr
-import rust_msbwt_tpu.ops.extract as extract
-import rust_msbwt_tpu.ops.merge as merge
-import rust_msbwt_tpu.ops.packed_rank as packed_rank
-import rust_msbwt_tpu.ops.pair_rank as pair_rank
-import rust_msbwt_tpu.ops.rank as rank
-import rust_msbwt_tpu.ops.rle as rle
-import rust_msbwt_tpu.parallel.doubling_merge as doubling_merge
-import rust_msbwt_tpu.parallel.partitioned as partitioned
-import rust_msbwt_tpu.parallel.sharded_index as sharded_index
-import rust_msbwt_tpu.parallel.sharded_merge as sharded_merge
-import rust_msbwt_tpu.utils.checkpoint as checkpoint
-import rust_msbwt_tpu.utils.checks as checks
-import rust_msbwt_tpu.utils.fastx as fastx
-import rust_msbwt_tpu.utils.npy as npy
-import rust_msbwt_tpu.utils.oracle as oracle
-import rust_msbwt_tpu.utils.profiling as profiling
-import rust_msbwt_tpu.utils.streaming as streaming
+import msbwt_jax.apps.correct as app_correct
+import msbwt_jax.models.core as core
+import msbwt_jax.models.dynamic as dynamic
+import msbwt_jax.models.rle_bwt as rle_bwt
+import msbwt_jax.ops.alphabet as alphabet
+import msbwt_jax.ops.bcr as bcr
+import msbwt_jax.ops.extract as extract
+import msbwt_jax.ops.merge as merge
+import msbwt_jax.ops.packed_rank as packed_rank
+import msbwt_jax.ops.pair_rank as pair_rank
+import msbwt_jax.ops.rank as rank
+import msbwt_jax.ops.rle as rle
+import msbwt_jax.parallel.doubling_merge as doubling_merge
+import msbwt_jax.parallel.partitioned as partitioned
+import msbwt_jax.parallel.sharded_index as sharded_index
+import msbwt_jax.parallel.sharded_merge as sharded_merge
+import msbwt_jax.utils.checkpoint as checkpoint
+import msbwt_jax.utils.checks as checks
+import msbwt_jax.utils.fastx as fastx
+import msbwt_jax.utils.npy as npy
+import msbwt_jax.utils.oracle as oracle
+import msbwt_jax.utils.profiling as profiling
+import msbwt_jax.utils.streaming as streaming
 
 
 @pytest.mark.parametrize(

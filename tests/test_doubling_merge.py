@@ -4,11 +4,11 @@ doubling on the 8-virtual-device CPU mesh."""
 import numpy as np
 import pytest
 
-from rust_msbwt_tpu.ops.alphabet import convert_itos, convert_stoi
-from rust_msbwt_tpu.ops.bcr import build_msbwt, encode_reads
-from rust_msbwt_tpu.ops.merge import multiway_bwt_merge
-from rust_msbwt_tpu.parallel.doubling_merge import sharded_doubling_merge
-from rust_msbwt_tpu.utils.oracle import naive_bwt
+from msbwt_jax.ops.alphabet import convert_itos, convert_stoi
+from msbwt_jax.ops.bcr import build_msbwt, encode_reads
+from msbwt_jax.ops.merge import multiway_bwt_merge
+from msbwt_jax.parallel.doubling_merge import sharded_doubling_merge
+from msbwt_jax.utils.oracle import naive_bwt
 
 
 def _bwt_of(strings):
@@ -42,7 +42,7 @@ def test_sharded_doubling_tie_stress():
 
 
 def test_sharded_doubling_matches_hm_and_sources(rng):
-    from rust_msbwt_tpu.parallel.sharded_merge import sharded_hm_merge
+    from msbwt_jax.parallel.sharded_merge import sharded_hm_merge
 
     alpha = list("ACGT")
     groups = [

@@ -2,12 +2,12 @@
 
 import numpy as np
 
-from rust_msbwt_tpu.models.core import BWTRange
-from rust_msbwt_tpu.models.dynamic import DynamicBWT, create_from_fastx
-from rust_msbwt_tpu.ops.alphabet import VC_LEN, convert_stoi
-from rust_msbwt_tpu.ops.rle import convert_to_vec
-from rust_msbwt_tpu.utils.npy import save_bwt_bytes
-from rust_msbwt_tpu.utils.oracle import naive_bwt
+from msbwt_jax.models.core import BWTRange
+from msbwt_jax.models.dynamic import DynamicBWT, create_from_fastx
+from msbwt_jax.ops.alphabet import VC_LEN, convert_stoi
+from msbwt_jax.ops.rle import convert_to_vec
+from msbwt_jax.utils.npy import save_bwt_bytes
+from msbwt_jax.utils.oracle import naive_bwt
 
 
 def test_init_empty():
@@ -176,7 +176,7 @@ def test_dynamic_kmer_cache_parity():
     RleBWT cache, and must survive (lazily rebuild across) a mutation."""
     import numpy as np
 
-    from rust_msbwt_tpu.models.rle_bwt import RleBWT
+    from msbwt_jax.models.rle_bwt import RleBWT
 
     rng = np.random.default_rng(7)
     data = ["".join(rng.choice(list("ACGT"), size=20)) for _ in range(40)]
@@ -188,7 +188,7 @@ def test_dynamic_kmer_cache_parity():
     cached = b.count_kmers(kmers)
     assert plain.tolist() == cached.tolist()
 
-    from rust_msbwt_tpu.ops.rle import bytes_from_runs, runs_from_symbols
+    from msbwt_jax.ops.rle import bytes_from_runs, runs_from_symbols
 
     r = RleBWT()
     r.load_vector(bytes_from_runs(*runs_from_symbols(b.to_vec())))
@@ -205,12 +205,12 @@ def test_dynamic_kmer_cache_parity():
 
 
 def test_materialize_fused_pallas_path(monkeypatch):
-    """The TPU materialize path (build_msbwt_with_index, device-resident
-    base + indexes) must behave identically to the XLA path — forced here
-    via interpret-mode Pallas on CPU."""
-    from rust_msbwt_tpu.ops import bcr
+    """The fused-engine materialize path (build_msbwt_with_index,
+    device-resident base + indexes) must behave identically to the XLA
+    path."""
+    from msbwt_jax.ops import bcr
 
-    monkeypatch.setattr(bcr, "default_engine", lambda: "pallas")
+    monkeypatch.setattr(bcr, "default_engine", lambda: "fused")
     data = ["CCGTACGTA", "GGTACAGTA", "ACGACGACG"]
     b = DynamicBWT()
     b.insert_strings(data, True)
@@ -230,8 +230,8 @@ def test_materialize_fused_pallas_path(monkeypatch):
 
 def test_count_kmers_approx_bruteforce(rng):
     """Hamming<=1 counts equal a brute-force window scan over the reads."""
-    from rust_msbwt_tpu.models.dynamic import DynamicBWT
-    from rust_msbwt_tpu.ops.alphabet import convert_itos
+    from msbwt_jax.models.dynamic import DynamicBWT
+    from msbwt_jax.ops.alphabet import convert_itos
 
     reads_l = [rng.integers(1, 6, int(rng.integers(5, 20))).astype(np.uint8)
                for _ in range(25)]

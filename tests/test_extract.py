@@ -6,9 +6,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rust_msbwt_tpu.ops.bcr import build_msbwt, encode_reads, sort_reads
-from rust_msbwt_tpu.ops.extract import extract_reads
-from rust_msbwt_tpu.ops.rank import build_occ_index
+from msbwt_jax.ops.bcr import build_msbwt, encode_reads, sort_reads
+from msbwt_jax.ops.extract import extract_reads
+from msbwt_jax.ops.rank import build_occ_index
 
 
 def test_extract_all_reads():
@@ -47,7 +47,7 @@ def test_locate_kmers_matches_bruteforce():
     """Every (read, offset) occurrence of each query must be reported
     exactly once, with read ids in the lexicographic (sorted-build) id
     space — cross-checked against a host brute-force scan."""
-    from rust_msbwt_tpu.ops.extract import locate_kmers
+    from msbwt_jax.ops.extract import locate_kmers
 
     rng = np.random.default_rng(31)
     reads_l = [rng.integers(1, 6, rng.integers(4, 25)).astype(np.uint8)
@@ -75,7 +75,7 @@ def test_locate_kmers_matches_bruteforce():
 
 
 def test_locate_kmers_no_hits_and_duplicates():
-    from rust_msbwt_tpu.ops.extract import locate_kmers
+    from msbwt_jax.ops.extract import locate_kmers
 
     reads_l = [np.array([1, 2, 3, 1, 2], np.uint8)] * 3
     reads, lens = encode_reads(reads_l)
@@ -93,8 +93,8 @@ def test_locate_kmers_no_hits_and_duplicates():
 def test_locate_kmers_model_methods():
     """RleBWT.locate_kmers and DynamicBWT.locate_kmers agree with the op
     (same index, same id space) through the public model surface."""
-    from rust_msbwt_tpu.models.dynamic import DynamicBWT
-    from rust_msbwt_tpu.ops.extract import locate_kmers
+    from msbwt_jax.models.dynamic import DynamicBWT
+    from msbwt_jax.ops.extract import locate_kmers
 
     bwt = DynamicBWT()
     bwt.insert_strings(["ACGTA", "GGACG", "ACGAC"], sorted=True)

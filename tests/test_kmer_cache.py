@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rust_msbwt_tpu.models.rle_bwt import RleBWT
-from rust_msbwt_tpu.ops.alphabet import convert_stoi
-from rust_msbwt_tpu.ops.bcr import build_msbwt, encode_reads
-from rust_msbwt_tpu.ops.rank import build_kmer_cache, build_occ_index, count_kmers
-from rust_msbwt_tpu.ops.rle import bytes_from_runs, runs_from_symbols
-from rust_msbwt_tpu.utils.oracle import naive_bwt
+from msbwt_jax.models.rle_bwt import RleBWT
+from msbwt_jax.ops.alphabet import convert_stoi
+from msbwt_jax.ops.bcr import build_msbwt, encode_reads
+from msbwt_jax.ops.rank import build_kmer_cache, build_occ_index, count_kmers
+from msbwt_jax.ops.rle import bytes_from_runs, runs_from_symbols
+from msbwt_jax.utils.oracle import naive_bwt
 
 
 @pytest.fixture(scope="module")
@@ -82,7 +82,7 @@ def test_cache_cleared_on_reload(setup, rng):
 
     # now load a DIFFERENT BWT into the same object
     data_b = ["".join(rng.choice(list("ACGT"), size=18)) for _ in range(25)]
-    from rust_msbwt_tpu.utils.oracle import naive_bwt as _nb
+    from msbwt_jax.utils.oracle import naive_bwt as _nb
     dec_b = convert_stoi(_nb(data_b))
     bwt.load_vector(bytes_from_runs(*runs_from_symbols(np.asarray(dec_b, np.uint8))))
     q = np.stack([convert_stoi(s[:8]) for s in data_b[:10]])
@@ -101,7 +101,7 @@ def test_fused_cache_equals_chained_levels(setup):
     from the fused level-8 table — this pins the seam)."""
     import jax.numpy as jnp
 
-    from rust_msbwt_tpu.ops.rank import _cache_fused_impl, _cache_level_impl
+    from msbwt_jax.ops.rank import _cache_fused_impl, _cache_level_impl
 
     data, decoded, index = setup
     k = 5
@@ -120,7 +120,7 @@ def test_fused_cache_equals_chained_levels(setup):
 
 def test_auto_cache_on_big_index(setup, monkeypatch):
     """Indexes past PAIR_AUTO_MIN_SYMBOLS auto-build both the pair index and
-    the CACHE_AUTO_K prefix cache; MSBWT_TPU_NO_CACHE opts out of the cache
+    the CACHE_AUTO_K prefix cache; MSBWT_NO_CACHE opts out of the cache
     while keeping the pair index (ref engine always queries cold:
     src/rle_bwt.rs:202-287)."""
     data, decoded, index = setup
@@ -140,7 +140,7 @@ def test_auto_cache_on_big_index(setup, monkeypatch):
     assert bwt._pair_index is not None
     assert bwt._cache_k == 3
 
-    monkeypatch.setenv("MSBWT_TPU_NO_CACHE", "1")
+    monkeypatch.setenv("MSBWT_NO_CACHE", "1")
     bwt2 = RleBWT()
     bwt2.load_vector(payload)
     assert bwt2.count_kmers(kmers).tolist() == expect
@@ -150,7 +150,7 @@ def test_auto_cache_on_big_index(setup, monkeypatch):
 
 def test_auto_cache_dynamic(setup, monkeypatch):
     """DynamicBWT gets the same auto cache+pair treatment on big indexes."""
-    from rust_msbwt_tpu.models.dynamic import DynamicBWT
+    from msbwt_jax.models.dynamic import DynamicBWT
 
     data, decoded, index = setup
     payload = bytes_from_runs(*runs_from_symbols(np.asarray(decoded, np.uint8)))

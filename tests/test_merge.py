@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from rust_msbwt_tpu.ops.alphabet import convert_itos, convert_stoi
-from rust_msbwt_tpu.ops.bcr import build_msbwt, encode_reads
-from rust_msbwt_tpu.ops.merge import kway_merge, pairwise_bwt_merge
-from rust_msbwt_tpu.utils.oracle import naive_bwt
+from msbwt_jax.ops.alphabet import convert_itos, convert_stoi
+from msbwt_jax.ops.bcr import build_msbwt, encode_reads
+from msbwt_jax.ops.merge import kway_merge, pairwise_bwt_merge
+from msbwt_jax.utils.oracle import naive_bwt
 
 
 def _bwt_of(strings):
@@ -65,7 +65,7 @@ def test_random_merges(rng):
 def test_pairwise_merge_wide_mode():
     """int64 ("wide") positions — the >2^31-symbol path — must agree with
     the int32 path on small data."""
-    from rust_msbwt_tpu.ops.merge import pairwise_bwt_merge
+    from msbwt_jax.ops.merge import pairwise_bwt_merge
 
     rng = np.random.default_rng(55)
     a = naive_bwt(["".join(rng.choice(list("ACGT"), size=15)) for _ in range(10)])
@@ -81,7 +81,7 @@ def test_pairwise_merge_wide_mode():
 def test_doubling_multiway_vs_oracle(rng):
     """One-shot doubling merge == naive oracle over random D-way splits,
     including duplicate strings across and within sources (tie order)."""
-    from rust_msbwt_tpu.ops.merge import multiway_bwt_merge
+    from msbwt_jax.ops.merge import multiway_bwt_merge
 
     alpha = list("ACGNT")
     for _ in range(8):
@@ -104,15 +104,15 @@ def test_doubling_equals_tree_and_sources():
     pairwise interleave."""
     import os
 
-    from rust_msbwt_tpu.ops.merge import merge_interleave, multiway_bwt_merge
+    from msbwt_jax.ops.merge import merge_interleave, multiway_bwt_merge
 
     groups = [["ACG", "T", "ACG"], ["CCGT", "ACG"], ["N", "NA"], ["GATTACA"]]
     parts = [_bwt_of(g) for g in groups]
-    os.environ["MSBWT_TPU_MERGE"] = "tree"
+    os.environ["MSBWT_MERGE"] = "tree"
     try:
         tree = kway_merge(parts)
     finally:
-        os.environ.pop("MSBWT_TPU_MERGE", None)
+        os.environ.pop("MSBWT_MERGE", None)
     got, srcs = multiway_bwt_merge(parts, return_sources=True)
     assert got.tolist() == tree.tolist()
     # pairwise: source ids vs the H-M interleave vector
@@ -124,7 +124,7 @@ def test_doubling_equals_tree_and_sources():
 
 def test_doubling_wide_mode():
     """Forced-int64 doubling merge == int32 doubling merge."""
-    from rust_msbwt_tpu.ops.merge import multiway_bwt_merge
+    from msbwt_jax.ops.merge import multiway_bwt_merge
 
     rng = np.random.default_rng(77)
     alpha = list("ACGNT")
@@ -138,7 +138,7 @@ def test_doubling_wide_mode():
 
 
 def test_doubling_single_and_empty_sources():
-    from rust_msbwt_tpu.ops.merge import multiway_bwt_merge
+    from msbwt_jax.ops.merge import multiway_bwt_merge
 
     one = _bwt_of(["GATTACA"])
     assert multiway_bwt_merge([one]).tolist() == one.tolist()

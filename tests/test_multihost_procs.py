@@ -22,10 +22,10 @@ def _free_port() -> int:
 
 
 def test_two_process_build_matches_oracle(tmp_path):
-    from rust_msbwt_tpu.ops.alphabet import convert_itos
-    from rust_msbwt_tpu.utils.npy import load_bwt_bytes
-    from rust_msbwt_tpu.utils.oracle import naive_bwt
-    from rust_msbwt_tpu.ops.rle import decode_symbols
+    from msbwt_jax.ops.alphabet import convert_itos
+    from msbwt_jax.utils.npy import load_bwt_bytes
+    from msbwt_jax.utils.oracle import naive_bwt
+    from msbwt_jax.ops.rle import decode_symbols
 
     out = tmp_path / "mh.npy"
     port = _free_port()

@@ -5,10 +5,10 @@ import gzip
 import numpy as np
 import pytest
 
-from rust_msbwt_tpu.ops.alphabet import convert_stoi
-from rust_msbwt_tpu.ops.rle import bytes_from_runs, runs_from_bytes, runs_from_symbols
-from rust_msbwt_tpu.utils.fastx import parse_fastx
-from rust_msbwt_tpu.utils import native
+from msbwt_jax.ops.alphabet import convert_stoi
+from msbwt_jax.ops.rle import bytes_from_runs, runs_from_bytes, runs_from_symbols
+from msbwt_jax.utils.fastx import parse_fastx
+from msbwt_jax.utils import native
 
 
 @pytest.fixture(scope="module")
@@ -70,7 +70,7 @@ def test_parse_missing_file(lib):
 
 
 def test_sort_rows_native_matches_numpy():
-    from rust_msbwt_tpu.utils.native import sort_rows_native
+    from msbwt_jax.utils.native import sort_rows_native
 
     rng = np.random.default_rng(11)
     reads = rng.integers(0, 6, size=(3000, 23)).astype(np.uint8)
@@ -84,8 +84,8 @@ def test_sort_rows_native_matches_numpy():
 
 
 def test_reads_to_cols_native_matches_python():
-    from rust_msbwt_tpu.ops.bcr import reads_to_cols
-    from rust_msbwt_tpu.utils.native import reads_to_cols_native, sort_rows_native
+    from msbwt_jax.ops.bcr import reads_to_cols
+    from msbwt_jax.utils.native import reads_to_cols_native, sort_rows_native
 
     rng = np.random.default_rng(13)
     L = 19
@@ -108,9 +108,9 @@ def test_reads_to_cols_native_matches_python():
 
 
 def test_baseline_build_matches_oracle(rng):
-    from rust_msbwt_tpu.ops.alphabet import convert_itos, convert_stoi
-    from rust_msbwt_tpu.utils.native import baseline_build_native
-    from rust_msbwt_tpu.utils.oracle import naive_bwt
+    from msbwt_jax.ops.alphabet import convert_itos, convert_stoi
+    from msbwt_jax.utils.native import baseline_build_native
+    from msbwt_jax.utils.oracle import naive_bwt
 
     data = ["".join(rng.choice(list("ACGNT"), size=rng.integers(3, 28)))
             for _ in range(120)]
@@ -124,8 +124,8 @@ def test_baseline_build_matches_oracle(rng):
 
 
 def test_baseline_build_chronological():
-    from rust_msbwt_tpu.ops.alphabet import convert_stoi
-    from rust_msbwt_tpu.utils.native import baseline_build_native
+    from msbwt_jax.ops.alphabet import convert_stoi
+    from msbwt_jax.utils.native import baseline_build_native
 
     # the reference's insert_string doctest (ref: src/dynamic_bwt.rs:295-302)
     got = baseline_build_native([convert_stoi("ACGNT")], sorted_insert=False)
@@ -138,11 +138,11 @@ def test_baseline_build_chronological():
 def test_baseline_queries_match_engine(rng):
     import jax.numpy as jnp
 
-    from rust_msbwt_tpu.ops.alphabet import convert_stoi
-    from rust_msbwt_tpu.ops.rank import build_occ_index, count_kmers
-    from rust_msbwt_tpu.ops.rle import bytes_from_runs, runs_from_symbols
-    from rust_msbwt_tpu.utils.native import baseline_count_kmers_native
-    from rust_msbwt_tpu.utils.oracle import naive_bwt
+    from msbwt_jax.ops.alphabet import convert_stoi
+    from msbwt_jax.ops.rank import build_occ_index, count_kmers
+    from msbwt_jax.ops.rle import bytes_from_runs, runs_from_symbols
+    from msbwt_jax.utils.native import baseline_count_kmers_native
+    from msbwt_jax.utils.oracle import naive_bwt
 
     data = ["".join(rng.choice(list("ACGT"), size=20)) for _ in range(80)]
     dec = np.asarray(convert_stoi(naive_bwt(data)), np.uint8)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from rust_msbwt_tpu.ops.rle import convert_to_vec
-from rust_msbwt_tpu.utils.npy import load_bwt_bytes, save_bwt_bytes, save_bwt_runs
+from msbwt_jax.ops.rle import convert_to_vec
+from msbwt_jax.utils.npy import load_bwt_bytes, save_bwt_bytes, save_bwt_runs
 
 from tests._data import GOLDEN_NPY as GOLDEN  # noqa: E402
 

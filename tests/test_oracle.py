@@ -1,6 +1,6 @@
 """Oracle self-tests (mirrors ref: src/bwt_util.rs:189-275)."""
 
-from rust_msbwt_tpu.utils.oracle import naive_bwt, pairwise_bwt_merge
+from msbwt_jax.utils.oracle import naive_bwt, pairwise_bwt_merge
 
 
 def test_basic():

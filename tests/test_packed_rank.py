@@ -4,13 +4,13 @@ rank engine (itself oracle-validated in test_rle_bwt / test_bcr)."""
 import numpy as np
 import jax.numpy as jnp
 
-from rust_msbwt_tpu.ops.bcr import build_msbwt, encode_reads
-from rust_msbwt_tpu.ops.packed_rank import (
+from msbwt_jax.ops.bcr import build_msbwt, encode_reads
+from msbwt_jax.ops.packed_rank import (
     count_kmers_packed,
     pack_index,
     rank_packed,
 )
-from rust_msbwt_tpu.ops.rank import (
+from msbwt_jax.ops.rank import (
     build_kmer_cache,
     build_occ_index,
     count_kmers,
@@ -88,7 +88,7 @@ def test_fetch_counts_compact_and_overflow(monkeypatch):
     falls back to the full-width copy."""
     import jax.numpy as jnp
 
-    from rust_msbwt_tpu.ops import rank as R
+    from msbwt_jax.ops import rank as R
 
     monkeypatch.setattr(R, "_COMPACT_MIN_B", 1)
     # 70,000 'A' symbols: count('A') overflows u16
@@ -99,6 +99,6 @@ def test_fetch_counts_compact_and_overflow(monkeypatch):
     assert out.tolist() == [70_000, 0]
     assert out.dtype == np.int64
     # non-overflow batch: compact result equals the full-width result
-    monkeypatch.setenv("MSBWT_TPU_NO_COMPACT", "1")
+    monkeypatch.setenv("MSBWT_NO_COMPACT", "1")
     full = R.count_kmers(idx, kmers)
     assert full.tolist() == out.tolist()

@@ -1,25 +1,24 @@
 """2-step FM index (ops.pair_rank): parity with the single-step engine.
 
-The pair path halves the dependent gather rounds (the measured lever on
-big indexes: 1.56M -> 4.40M q/s at the 505M E. coli index on one v5e chip).
+The pair path halves the dependent gather rounds of a query.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rust_msbwt_tpu.ops.alphabet import convert_stoi
-from rust_msbwt_tpu.ops.pair_rank import (
+from msbwt_jax.ops.alphabet import convert_stoi
+from msbwt_jax.ops.pair_rank import (
     _build_pair_stream,
     build_pair_index,
     count_kmers_pair,
 )
-from rust_msbwt_tpu.ops.rank import (
+from msbwt_jax.ops.rank import (
     build_kmer_cache,
     build_occ_index,
     count_kmers,
 )
-from rust_msbwt_tpu.utils.oracle import naive_bwt
+from msbwt_jax.utils.oracle import naive_bwt
 
 
 @pytest.fixture(scope="module")
@@ -53,9 +52,9 @@ def test_pair_stream_is_bwt_and_lf(setup, rng):
 
 
 def test_pair_stream_rowgather_matches_flat(setup, rng):
-    """The i32-packed row-gather stream variant (MSBWT_TPU_PAIR_FAST) must
+    """The i32-packed row-gather stream variant (MSBWT_PAIR_FAST) must
     produce the exact flat-gather stream, including with multiple chunks."""
-    from rust_msbwt_tpu.ops import pair_rank as pr
+    from msbwt_jax.ops import pair_rank as pr
 
     dec, index, pidx = setup
     want = np.asarray(
@@ -71,7 +70,7 @@ def test_pair_stream_rowgather_matches_flat(setup, rng):
     # first trace at a fresh shape (jit re-traces per shape, so the
     # patched value is read), then compare on a BWT spanning many bins
     data = ["".join(rng.choice(list("ACGT"), size=60)) for _ in range(40)]
-    from rust_msbwt_tpu.ops.alphabet import convert_stoi as stoi
+    from msbwt_jax.ops.alphabet import convert_stoi as stoi
     dec2 = np.asarray(stoi(naive_bwt(data)), np.uint8)
     idx2 = build_occ_index(jnp.asarray(dec2))
     flat = np.asarray(pr._build_pair_stream_flat(
@@ -115,8 +114,8 @@ def test_pair_counts_with_cache_seed(setup, rng):
 def test_model_level_pair_index(setup, rng):
     """RleBWT.enable_pair_index routes count_kmers through the 2-step path
     with identical results, and reload clears it."""
-    from rust_msbwt_tpu.models.rle_bwt import RleBWT
-    from rust_msbwt_tpu.ops.rle import bytes_from_runs, runs_from_symbols
+    from msbwt_jax.models.rle_bwt import RleBWT
+    from msbwt_jax.ops.rle import bytes_from_runs, runs_from_symbols
 
     dec, index, pidx = setup
     bwt = RleBWT()
@@ -135,14 +134,14 @@ def test_model_level_pair_index(setup, rng):
 
 def test_compact_row60_layout_matches_legacy(setup, rng, monkeypatch):
     """The 240-byte 60-lane row layout (now the default) must answer
-    identically to the legacy 128-lane layout (MSBWT_TPU_PAIR_ROW60=0),
+    identically to the legacy 128-lane layout (MSBWT_PAIR_ROW60=0),
     with and without a cache seed, including odd-tail single-symbol
     rounds."""
     dec, index, _ = setup
-    monkeypatch.setenv("MSBWT_TPU_PAIR_ROW60", "0")
+    monkeypatch.setenv("MSBWT_PAIR_ROW60", "0")
     pidx = build_pair_index(index)       # legacy 128-lane arm
     assert pidx.table2.shape[1] == 128
-    monkeypatch.setenv("MSBWT_TPU_PAIR_ROW60", "1")
+    monkeypatch.setenv("MSBWT_PAIR_ROW60", "1")
     pidx60 = build_pair_index(index)
     assert pidx60.table2.shape[1] == 60
     kmers = rng.integers(0, 6, size=(300, 7)).astype(np.uint8)

@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rust_msbwt_tpu.ops.bcr import build_msbwt, encode_reads
-from rust_msbwt_tpu.ops.rank import build_occ_index, count_kmers
-from rust_msbwt_tpu.parallel.partitioned import (
+from msbwt_jax.ops.bcr import build_msbwt, encode_reads
+from msbwt_jax.ops.rank import build_occ_index, count_kmers
+from msbwt_jax.parallel.partitioned import (
     build_partitioned,
     count_kmers_partitioned,
 )

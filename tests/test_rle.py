@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from rust_msbwt_tpu.ops.rle import (
+from msbwt_jax.ops.rle import (
     bytes_from_runs,
     convert_to_vec,
     decode_symbols,
@@ -11,7 +11,7 @@ from rust_msbwt_tpu.ops.rle import (
     runs_from_symbols,
     symbol_counts_from_bytes,
 )
-from rust_msbwt_tpu.utils.oracle import naive_bwt
+from msbwt_jax.utils.oracle import naive_bwt
 
 
 def test_convert_to_vec_simple():
@@ -96,7 +96,7 @@ def test_random_round_trip(rng):
 
 
 def test_rle_meta_chunked_parity(rng):
-    from rust_msbwt_tpu.ops.rle import rle_meta
+    from msbwt_jax.ops.rle import rle_meta
 
     for _ in range(10):
         n_runs = int(rng.integers(1, 300))
@@ -114,7 +114,7 @@ def test_rle_meta_chunked_parity(rng):
 
 
 def test_decode_symbols_device_parity(rng):
-    from rust_msbwt_tpu.ops.rle import decode_symbols_device, rle_meta
+    from msbwt_jax.ops.rle import decode_symbols_device, rle_meta
 
     for _ in range(6):
         n_runs = int(rng.integers(1, 120))
@@ -131,7 +131,7 @@ def test_decode_symbols_device_parity(rng):
 
 
 def test_decode_symbols_device_chunked_upload():
-    from rust_msbwt_tpu.ops.rle import _upload_bytes, decode_symbols
+    from msbwt_jax.ops.rle import _upload_bytes, decode_symbols
 
     vec = convert_to_vec("GTN$$ACCC$G" * 50)
     dev = np.asarray(_upload_bytes(vec, chunk=13))
@@ -139,6 +139,6 @@ def test_decode_symbols_device_chunked_upload():
 
 
 def test_decode_symbols_device_empty():
-    from rust_msbwt_tpu.ops.rle import decode_symbols_device
+    from msbwt_jax.ops.rle import decode_symbols_device
 
     assert np.asarray(decode_symbols_device(np.zeros(0, np.uint8), 0)).size == 0

@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from rust_msbwt_tpu.models.core import BWTRange
-from rust_msbwt_tpu.models.rle_bwt import RleBWT, build_sampled_fm_index
-from rust_msbwt_tpu.ops.alphabet import VC_LEN, convert_stoi
-from rust_msbwt_tpu.ops.rle import convert_to_vec
-from rust_msbwt_tpu.utils.npy import save_bwt_bytes
-from rust_msbwt_tpu.utils.oracle import naive_bwt
+from msbwt_jax.models.core import BWTRange
+from msbwt_jax.models.rle_bwt import RleBWT, build_sampled_fm_index
+from msbwt_jax.ops.alphabet import VC_LEN, convert_stoi
+from msbwt_jax.ops.rle import convert_to_vec
+from msbwt_jax.utils.npy import save_bwt_bytes
+from msbwt_jax.utils.oracle import naive_bwt
 
 
 def test_load_from_npy(tmp_path):
@@ -164,8 +164,8 @@ def test_golden_two_string_queries():
 
 def test_kmer_profile():
     """Window counts of every read position (the error-correction primitive)."""
-    from rust_msbwt_tpu.ops.bcr import build_msbwt, encode_reads
-    from rust_msbwt_tpu.ops.rle import bytes_from_runs, runs_from_symbols
+    from msbwt_jax.ops.bcr import build_msbwt, encode_reads
+    from msbwt_jax.ops.rle import bytes_from_runs, runs_from_symbols
 
     rng = np.random.default_rng(8)
     reads_l = [rng.integers(1, 6, 20).astype(np.uint8) for _ in range(30)]
@@ -186,12 +186,12 @@ def test_count_kmers_bidirectional():
     """fw + rc counting (the double-stranded application convention),
     verified against explicit two-query sums incl. ragged lengths and
     palindromes."""
-    from rust_msbwt_tpu.models.rle_bwt import RleBWT
-    from rust_msbwt_tpu.ops.alphabet import (
+    from msbwt_jax.models.rle_bwt import RleBWT
+    from msbwt_jax.ops.alphabet import (
         convert_stoi, reverse_complement_i,
     )
-    from rust_msbwt_tpu.ops.rle import bytes_from_runs, runs_from_symbols
-    from rust_msbwt_tpu.utils.oracle import naive_bwt
+    from msbwt_jax.ops.rle import bytes_from_runs, runs_from_symbols
+    from msbwt_jax.utils.oracle import naive_bwt
 
     rng = np.random.default_rng(13)
     data = ["".join(rng.choice(list("ACGNT"), size=18)) for _ in range(40)]
@@ -209,3 +209,50 @@ def test_count_kmers_bidirectional():
         fw = bwt.count_kmer(kmers[i, K - lens[i]:])
         rc = bwt.count_kmer(reverse_complement_i(kmers[i, K - lens[i]:]))
         assert got[i] == fw + rc, i
+
+
+class _FakeDevice:
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+def _runny_engine(n_runs: int, run_len: int) -> RleBWT:
+    """An engine whose metadata says n_runs runs over n_runs*run_len
+    symbols (the tier policy reads only sizes)."""
+    b = RleBWT()
+    b.total_size = n_runs * run_len
+    b.n_runs = n_runs
+    return b
+
+
+@pytest.mark.parametrize(
+    "stats,env,want_budget,want_run_tier",
+    [
+        # 80 GB card: 0.75 x bytes_limit; 9 B/pos x 10G symbols exceeds it
+        ({"bytes_limit": 80_000_000_000}, None, 60e9, True),
+        # small limit, small index: decoded tiers fit
+        ({"bytes_limit": 1_000_000_000}, None, 0.75e9, False),
+        # a device that reports no limit: no budget is invented
+        (None, None, None, False),
+        ({}, None, None, False),
+        # explicit override wins over the device
+        ({"bytes_limit": 80_000_000_000}, "2", 2e9, True),
+    ],
+)
+def test_device_budget_policy(monkeypatch, stats, env, want_budget,
+                              want_run_tier):
+    import jax
+
+    monkeypatch.setattr(jax, "devices", lambda: [_FakeDevice(stats)])
+    monkeypatch.delenv("MSBWT_RUN_TIER", raising=False)
+    if env is None:
+        monkeypatch.delenv("MSBWT_DEVICE_BUDGET_GB", raising=False)
+    else:
+        monkeypatch.setenv("MSBWT_DEVICE_BUDGET_GB", env)
+    small = stats and stats.get("bytes_limit") == 1_000_000_000
+    b = _runny_engine(n_runs=1_000_000 if small else 250_000_000, run_len=40)
+    assert b.device_budget_bytes() == want_budget
+    assert b._auto_run_tier() is want_run_tier

@@ -5,10 +5,10 @@ boundaries, and memory accounting."""
 import numpy as np
 import jax.numpy as jnp
 
-from rust_msbwt_tpu.ops.bcr import build_msbwt, encode_reads
-from rust_msbwt_tpu.ops.rank import build_occ_index, build_kmer_cache, count_kmers, rank
-from rust_msbwt_tpu.ops.rle import runs_from_symbols
-from rust_msbwt_tpu.ops.run_rank import (
+from msbwt_jax.ops.bcr import build_msbwt, encode_reads
+from msbwt_jax.ops.rank import build_occ_index, build_kmer_cache, count_kmers, rank
+from msbwt_jax.ops.rle import runs_from_symbols
+from msbwt_jax.ops.run_rank import (
     MAX_RUN,
     RB,
     build_kmer_cache_runs,
@@ -122,7 +122,7 @@ def test_count_kmers_parity_with_cache():
 
 
 def test_build_from_bytes_matches_build_from_runs():
-    from rust_msbwt_tpu.ops.rle import bytes_from_runs
+    from msbwt_jax.ops.rle import bytes_from_runs
 
     dec, rng = _decoded(seed=17, n_reads=25)
     syms, counts = runs_from_symbols(dec)

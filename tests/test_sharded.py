@@ -4,17 +4,17 @@ import jax
 import numpy as np
 import pytest
 
-from rust_msbwt_tpu.models.rle_bwt import RleBWT
-from rust_msbwt_tpu.ops.alphabet import convert_itos, convert_stoi
-from rust_msbwt_tpu.ops.bcr import build_msbwt, encode_reads
-from rust_msbwt_tpu.ops.rle import convert_to_vec
-from rust_msbwt_tpu.parallel.mesh import default_mesh
-from rust_msbwt_tpu.parallel.sharded_build import build_msbwt_sharded
-from rust_msbwt_tpu.parallel.sharded_index import (
+from msbwt_jax.models.rle_bwt import RleBWT
+from msbwt_jax.ops.alphabet import convert_itos, convert_stoi
+from msbwt_jax.ops.bcr import build_msbwt, encode_reads
+from msbwt_jax.ops.rle import convert_to_vec
+from msbwt_jax.parallel.mesh import default_mesh
+from msbwt_jax.parallel.sharded_build import build_msbwt_sharded
+from msbwt_jax.parallel.sharded_index import (
     build_sharded_index,
     count_kmers_sharded,
 )
-from rust_msbwt_tpu.utils.oracle import naive_bwt
+from msbwt_jax.utils.oracle import naive_bwt
 
 
 @pytest.fixture(scope="module")
@@ -78,8 +78,8 @@ def test_sharded_build_fewer_reads_than_devices(mesh):
 
 
 def test_sharded_hm_merge_matches_tree():
-    from rust_msbwt_tpu.ops.merge import kway_merge
-    from rust_msbwt_tpu.parallel.sharded_merge import sharded_hm_merge
+    from msbwt_jax.ops.merge import kway_merge
+    from msbwt_jax.parallel.sharded_merge import sharded_hm_merge
 
     rng = np.random.default_rng(17)
     groups = []
@@ -104,7 +104,7 @@ def test_build_sharded_with_distributed_merge():
 def test_sharded_query_wide_positions():
     """int64 ("wide") global positions — the >2^31-symbol path — must agree
     with the int32 path and the single-device engine on small data."""
-    from rust_msbwt_tpu.ops.rank import build_occ_index, count_kmers
+    from msbwt_jax.ops.rank import build_occ_index, count_kmers
     import jax.numpy as jnp
 
     rng = np.random.default_rng(31)
@@ -124,7 +124,7 @@ def test_shard_local_pos_past_2e31():
     and silently corrupts wide-mode ranks."""
     import jax
     import jax.numpy as jnp
-    from rust_msbwt_tpu.parallel.sharded_index import shard_local_pos
+    from msbwt_jax.parallel.sharded_index import shard_local_pos
 
     S = 805_306_368  # 3*S = 2415919104 > 2^31
     with jax.enable_x64():
@@ -137,8 +137,8 @@ def test_shard_local_pos_past_2e31():
 def test_ragged_transport_matches_dense_and_tree():
     """The ragged-all-to-all merge formulation (simulated primitive on CPU)
     must equal the dense transport and the single-device merge tree."""
-    from rust_msbwt_tpu.ops.merge import kway_merge
-    from rust_msbwt_tpu.parallel.sharded_merge import sharded_hm_merge
+    from msbwt_jax.ops.merge import kway_merge
+    from msbwt_jax.parallel.sharded_merge import sharded_hm_merge
 
     rng = np.random.default_rng(41)
     for trial in range(3):
@@ -160,7 +160,7 @@ def test_ragged_transport_volume_is_one_over_d():
     in reconstruct every source ships exactly its len_j elements
     (sum_i C[i,j] == len_j) and in refine every block ships exactly its
     valid elements — O(n/D), not O(n)."""
-    from rust_msbwt_tpu.parallel.sharded_merge import _PAD_SRC
+    from msbwt_jax.parallel.sharded_merge import _PAD_SRC
 
     rng = np.random.default_rng(77)
     lens = rng.integers(5, 40, 8)
@@ -189,7 +189,7 @@ def test_sharded_build_wide_merge_end_to_end():
     """Forced-wide end-to-end build on the CPU mesh: per-shard int32 builds
     composed by int64 merges must equal the single-device build (the
     chr21-scale >2^31-symbol composition, exercised on small data)."""
-    from rust_msbwt_tpu.parallel.sharded_merge import sharded_hm_merge
+    from msbwt_jax.parallel.sharded_merge import sharded_hm_merge
 
     rng = np.random.default_rng(61)
     reads_l = [rng.integers(1, 6, rng.integers(4, 30)).astype(np.uint8)
@@ -201,7 +201,7 @@ def test_sharded_build_wide_merge_end_to_end():
         assert np.array_equal(got, want), merge
     # ragged transport in wide mode as well
     groups = [build_msbwt(*encode_reads(reads_l[i::4])) for i in range(4)]
-    from rust_msbwt_tpu.ops.merge import kway_merge
+    from msbwt_jax.ops.merge import kway_merge
     assert np.array_equal(
         sharded_hm_merge(groups, transport="ragged", force_wide=True),
         kway_merge(groups),
@@ -212,7 +212,7 @@ def test_multihost_single_process_path():
     """The multi-host build path in its single-process degenerate form must
     produce the canonical MSBWT (init no-ops, stripe covers everything,
     distributed merge over the virtual mesh)."""
-    from rust_msbwt_tpu.parallel.multihost import (
+    from msbwt_jax.parallel.multihost import (
         build_msbwt_multihost,
         init_distributed,
         process_read_slice,
@@ -236,7 +236,7 @@ def test_wide_composition_end_to_end(mesh, rng, tmp_path):
     -> sharded npy export -> reload -> wide sharded-index queries vs oracle.
     The pieces are separately tested elsewhere; this pins the composition
     (ref u64-counts contract: src/msbwt_core.rs:124)."""
-    from rust_msbwt_tpu.utils.checkpoint import load_sharded, save_sharded
+    from msbwt_jax.utils.checkpoint import load_sharded, save_sharded
 
     data = _random_reads(rng, 120)
     want = convert_stoi(naive_bwt(data))

@@ -5,8 +5,8 @@ ref: src/lib.rs:30-43, src/dynamic_bwt.rs:734-773)."""
 import numpy as np
 import pytest
 
-from rust_msbwt_tpu.ops.bcr import build_msbwt, encode_reads
-from rust_msbwt_tpu.utils.streaming import StreamingBuilder, build_msbwt_streaming
+from msbwt_jax.ops.bcr import build_msbwt, encode_reads
+from msbwt_jax.utils.streaming import StreamingBuilder, build_msbwt_streaming
 
 
 def _reads(n, seed, lmin=3, lmax=25):
